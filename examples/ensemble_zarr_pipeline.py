@@ -6,7 +6,7 @@ store, stream it chunk-by-chunk through the pipeline computing CRPS +
 spread/skill + ensemble-mean RMSE, and tee the raw per-point statistics
 into a second Zarr store from the same pass.
 
-Run: python examples/ensemble_zarr_pipeline.py [--cpu]  (writes under /tmp)
+Run: python examples/ensemble_zarr_pipeline.py [--cpu]  (writes under the temp dir)
 """
 
 import os

@@ -5,7 +5,7 @@ The single-chunk path (the reference quickstart's
 ``aggregation.py:404``): build named-axis arrays, pick metrics, aggregate
 with area weighting and region bins, read off metric values.
 
-Run: python examples/quickstart.py [--cpu]  (CPU or TPU; no data files needed)
+Run: python examples/quickstart.py [--cpu]  (CPU or GPU; no data files needed)
 """
 
 import os

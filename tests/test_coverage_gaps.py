@@ -284,7 +284,7 @@ class TestComparisonSafeThresholds:
   """Float64 thresholds vs f32 data: directional rounding preserves the
   reference's float64 comparison semantics exactly.
 
-  Round-5 TPU parity fuzz find (wrappers seed 49): an f32-lattice member
+  Parity fuzz find (wrappers seed 49): an f32-lattice member
   value tied the round-to-nearest f32 image of a float64 RPS bin
   threshold, flipping a CDF indicator by 1/M at one gridpoint relative to
   the reference's float64 compare (``weatherbenchX/metrics/wrappers.py:

@@ -1,5 +1,6 @@
 """Probabilistic metric numerics, mirroring reference metrics_test patterns."""
 
+import functools
 import itertools
 
 import numpy as np
@@ -10,7 +11,7 @@ from weatherbenchx_tpu import aggregation, test_utils
 from weatherbenchx_tpu.darray import Coord, DimArray
 from weatherbenchx_tpu.metrics import base as mbase
 from weatherbenchx_tpu.metrics import probabilistic, wrappers
-from weatherbenchx_tpu.ops import crps_pairwise
+from weatherbenchx_tpu.ops import ensemble_stats
 
 
 def compute_all(metrics, preds, tgts, reduce_dims):
@@ -430,12 +431,20 @@ class TestReviewRegressions:
 class TestFusedEnsemblePass:
   """The fused spread+skill+moments kernel pass == the standalone paths.
 
-  One Pallas pass computes CRPS spread, CRPS skill, the ensemble mean and
-  Σ(x−mean)² from a VMEM-resident block, shared across sibling statistics
-  via base.computation_cache (it saves a second HBM sweep over the
-  production 50-member ensemble). These run it via the Pallas interpreter
-  on CPU and pin equality with the unfused paths, NaN semantics included.
+  One kernel pass computes CRPS spread, CRPS skill, the ensemble mean and
+  Σ(x−mean)², shared across sibling statistics via base.computation_cache
+  (it saves a second sweep over the production 50-member ensemble). These
+  select the kernel in interpret mode on CPU and pin equality with the
+  unfused paths, NaN semantics included.
   """
+
+  @staticmethod
+  def _select(monkeypatch, kernel):
+    monkeypatch.setattr(ensemble_stats, 'kernel_for', lambda backend: kernel)
+
+  def _interpret(self, monkeypatch):
+    self._select(monkeypatch, functools.partial(
+        ensemble_stats.fused_ensemble_stats, interpret=True))
 
   def _inputs(self, nan=True):
     rng = np.random.default_rng(0)
@@ -457,17 +466,16 @@ class TestFusedEnsemblePass:
     return preds, tgts, x, y, m
 
   def test_fused_matches_f64_and_plain(self, monkeypatch):
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
+    self._interpret(monkeypatch)
     preds, tgts, x, y, m = self._inputs()
     metrics = {'crps': probabilistic.CRPSEnsemble(use_sort=True),
                'ssr': probabilistic.UnbiasedSpreadSkillRatio(),
                'umr': probabilistic.UnbiasedEnsembleMeanRMSE()}
     fused = mbase.compute_unique_statistics_for_all_metrics(
         metrics, preds, tgts)
-    monkeypatch.setenv('WBX_NO_PALLAS', '1')
+    self._select(monkeypatch, None)
     plain = mbase.compute_unique_statistics_for_all_metrics(
         metrics, preds, tgts)
-    monkeypatch.delenv('WBX_NO_PALLAS')
 
     x64, y64 = x.astype(np.float64), y.astype(np.float64)
     truth = {
@@ -493,16 +501,14 @@ class TestFusedEnsemblePass:
       assert rel <= max(2 * plain_rel, 5e-7), (k, rel, plain_rel)
 
   def test_fused_pass_runs_once_per_input_pair(self, monkeypatch):
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
     preds, tgts, *_ = self._inputs(nan=False)
     calls = []
-    orig = crps_pairwise.fused_ensemble_stats
 
-    def spy(x, y, interpret=False):
+    def spy(x, y):
       calls.append(x.shape)
-      return orig(x, y, interpret=interpret)
+      return ensemble_stats.fused_ensemble_stats(x, y, interpret=True)
 
-    monkeypatch.setattr(crps_pairwise, 'fused_ensemble_stats', spy)
+    self._select(monkeypatch, spy)
     metrics = {'crps': probabilistic.CRPSEnsemble(use_sort=True),
                'ssr': probabilistic.UnbiasedSpreadSkillRatio(),
                'umr': probabilistic.UnbiasedEnsembleMeanRMSE()}
@@ -512,7 +518,7 @@ class TestFusedEnsemblePass:
   def test_no_cache_no_fusion(self, monkeypatch):
     """Outside a compute pass (no active cache) stats keep their
     standalone paths — the memo must never hold tracers across traces."""
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
+    self._interpret(monkeypatch)
     preds, tgts, *_ = self._inputs(nan=False)
     assert mbase.get_computation_cache() is None
     stat = probabilistic.CRPSSkill()
@@ -523,7 +529,7 @@ class TestFusedEnsemblePass:
                                rtol=1e-6)
 
   def test_mask_coord_survives_fusion(self, monkeypatch):
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
+    self._interpret(monkeypatch)
     preds, tgts, *_ = self._inputs(nan=False)
     mask = np.random.default_rng(1).random((10, 12)) > 0.3
     tgts = {'t2m': tgts['t2m'].assign_coords(
@@ -542,10 +548,10 @@ class TestFusedEnsemblePass:
     In eager passes, wrapper transforms build fresh same-shape arrays per
     statistic; once freed, CPython reuses the id and a later statistic
     with DIFFERENT data would silently get the previous statistic's
-    fused results (ADVICE r4, high). Pinning the inputs in the entry
+    fused results. Pinning the inputs in the entry
     makes id collision impossible while the entry lives.
     """
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
+    self._interpret(monkeypatch)
     preds, tgts, x, _, _ = self._inputs(nan=False)
     with mbase.computation_cache():
       cache = mbase.get_computation_cache()

@@ -84,7 +84,7 @@ def _make_pipeline(ckpt_dir, fail_after_local_chunks=None, local_mesh=False):
   mesh = None
   dim_to_axis = None
   if local_mesh:
-    # The real pod geometry in miniature (v5e-64 = 16 hosts x 4 chips):
+    # A multi-host pod in miniature (hosts x local devices):
     # each process shards its own chunks over a PER-PROCESS device mesh
     # while the cross-process reduction stays the DCN byte-allgather sum.
     import jax
@@ -238,10 +238,9 @@ class TestTwoProcessDistributed:
     _assert_matches_direct(tmp_path / 'mp_run.npz')
 
   def test_mesh_sharded_distributed_matches_direct(self, tmp_path):
-    """distributed=True x per-process 2-device mesh: the v5e-64 topology
-    (16 hosts x 4 chips) in miniature — mesh-sharded eval INSIDE each
-    process composed with the cross-process DCN allgather sum
-    (VERDICT r3 weak #6)."""
+    """distributed=True x per-process 2-device mesh: a multi-host topology
+    (hosts x local devices) in miniature — mesh-sharded eval INSIDE each
+    process composed with the cross-process allgather sum."""
     outs = _spawn('mesh_run', tmp_path, ckpt_dir=None,
                   out_name='mp_mesh.npz')
     for rc, out in outs:

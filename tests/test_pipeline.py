@@ -182,7 +182,7 @@ class TestChunkedVsDirect:
 
 
 class TestShardedVsSingleDevice:
-  """The TPU analogue of chunked-vs-direct: GSPMD mesh == single device."""
+  """The mesh analogue of chunked-vs-direct: GSPMD mesh == single device."""
 
   @pytest.mark.parametrize('reduce_dims', [
       ['init_time', 'lead_time', 'latitude', 'longitude'],

@@ -1,7 +1,7 @@
 """Golden parity harness: the ACTUAL upstream reference vs this framework.
 
 Runs the unmodified reference code (/root/reference, via the numpy/pandas
-xarray shim in tools/refshim) and this repo's independent TPU-native
+xarray shim in tools/refshim) and this repo's independent JAX
 implementation on IDENTICAL fixture arrays, through the reference's own
 ground-truth path ``compute_metric_values_for_single_chunk``
 (reference ``aggregation.py:404-428``), and asserts metric values agree to
@@ -19,6 +19,7 @@ Skipped when the reference tree is not present.
 """
 
 import contextlib
+import functools
 import os
 import pathlib
 import sys
@@ -38,6 +39,7 @@ from weatherbenchx_tpu.metrics import deterministic as t_deterministic
 from weatherbenchx_tpu.metrics import probabilistic as t_probabilistic
 from weatherbenchx_tpu.metrics import spatial as t_spatial
 from weatherbenchx_tpu.metrics import wrappers as t_wrappers
+from weatherbenchx_tpu.ops import ensemble_stats
 
 REFERENCE_ROOT = os.environ.get('WBX_REFERENCE_ROOT', '/root/reference')
 SHIM_ROOT = str(pathlib.Path(__file__).resolve().parent.parent
@@ -199,7 +201,7 @@ class Var:
     dims = tuple('number' if d == 'number2' else d for d in self.dims)
     return ns.xr.DataArray(self.arr, dims=dims, coords=coords)
 
-  def to_tpu(self):
+  def to_wbx(self):
     coords = {d: self._coord_values(d) for d in self.dims}
     if 'number2' in coords:
       coords['number'] = coords.pop('number2')
@@ -242,27 +244,27 @@ def clim_var(seed, *, level=False, lo=0.0, hi=1.0):
 
 
 def both(ns, variables):
-  """dict[var, Var] → (reference mapping, tpu mapping)."""
+  """dict[var, Var] → (reference mapping, wbx mapping)."""
   ref_side = {k: v.to_ref(ns) for k, v in variables.items()}
-  tpu_side = {k: v.to_tpu() for k, v in variables.items()}
-  return ref_side, tpu_side
+  wbx_side = {k: v.to_wbx() for k, v in variables.items()}
+  return ref_side, wbx_side
 
 
 # -- comparison ---------------------------------------------------------------
 
 
-def compare_results(ref_values, tpu_values, atol=1e-5, rtol=1e-5, keys=None):
-  """Compare reference metric_values Dataset with tpu dict[str, DimArray]."""
+def compare_results(ref_values, wbx_values, atol=1e-5, rtol=1e-5, keys=None):
+  """Compare reference metric_values Dataset with wbx dict[str, DimArray]."""
   ref_keys = set(ref_values.keys())
-  tpu_keys = set(tpu_values.keys())
+  wbx_keys = set(wbx_values.keys())
   if keys is None:
-    assert ref_keys == tpu_keys, (
-        f'metric keys differ:\n ref only: {sorted(ref_keys - tpu_keys)}\n'
-        f' tpu only: {sorted(tpu_keys - ref_keys)}')
+    assert ref_keys == wbx_keys, (
+        f'metric keys differ:\n ref only: {sorted(ref_keys - wbx_keys)}\n'
+        f' wbx only: {sorted(wbx_keys - ref_keys)}')
     keys = sorted(ref_keys)
   for k in keys:
     r = ref_values[k]
-    t = tpu_values[k]
+    t = wbx_values[k]
     assert set(r.dims) == set(t.dims), (k, r.dims, t.dims)
     rv = np.asarray(r.transpose(*t.dims).values, dtype=np.float64)
     tv = np.asarray(t.data, dtype=np.float64)
@@ -288,7 +290,7 @@ def run_ref(ns, metrics, agg, preds, targs):
       metrics, agg, dict(preds), dict(targs))
 
 
-def run_tpu(metrics, agg, preds, targs):
+def run_wbx(metrics, agg, preds, targs):
   out = t_aggregation.compute_metric_values_for_single_chunk(
       metrics, agg, dict(preds), dict(targs))
   return {k: v for k, v in out.items()}
@@ -303,7 +305,7 @@ def ref_agg(ns, **kw):
   return ns.aggregation.Aggregator(**kw)
 
 
-def tpu_agg(**kw):
+def wbx_agg(**kw):
   kw.setdefault('reduce_dims', list(REDUCE))
   kw.setdefault('weigh_by', [t_weighting.GridAreaWeighting()])
   return t_aggregation.Aggregator(**kw)
@@ -346,7 +348,7 @@ class TestDeterministicParity:
             u_name='u_wind', v_name='v_wind', vector_name='wind'),
     }
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_acc_activity_with_climatology(self, ref):
@@ -360,7 +362,7 @@ class TestDeterministicParity:
     rt, tt = both(ref, tvars)
     r_clim_ds = ref.xr.Dataset(
         {k: v.to_ref(ref) for k, v in clim.items()})
-    t_clim = {k: v.to_tpu() for k, v in clim.items()}
+    t_clim = {k: v.to_wbx() for k, v in clim.items()}
     r_metrics = {'acc': ref.deterministic.ACC(climatology=r_clim_ds),
                  'activity': ref.deterministic.PredictionActivity(
                      climatology=r_clim_ds)}
@@ -368,7 +370,7 @@ class TestDeterministicParity:
                  'activity': t_deterministic.PredictionActivity(
                      climatology=t_clim)}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
 
@@ -400,15 +402,14 @@ class TestProbabilisticParity:
         'root_mean_var': t_probabilistic.EnsembleRootMeanVariance(),
     }
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_crps_large_ensemble_sort_kernel_body(self, ref, monkeypatch):
-    # m=24 selects the bitonic/PWM sort body of the Pallas spread kernel
-    # (ops/crps_pairwise.py _spread_form: sort at m >= 20); run it via the
-    # Pallas interpreter against the actual reference, with NaN'd members
-    # and a masked/binned aggregation, so the production kernel body is
-    # parity-covered and not just the small-m pairs body.
+    # m=24 pads the fused kernel's sorting network to 32 wires
+    # (ops/ensemble_stats.py); run it through the Pallas interpreter
+    # against the actual reference, with NaN'd members and a
+    # masked/binned aggregation, so the kernel body is parity-covered.
     m = 24
     arr = _rng(48).random((N_INIT, N_LEAD, m, len(LATS), len(LONS)),
                           dtype=np.float32)
@@ -418,7 +419,10 @@ class TestProbabilisticParity:
     tvars = {'2m_temperature': grid_var(49)}
     rp, tp = both(ref, variables)
     rt, tt = both(ref, tvars)
-    monkeypatch.setenv('WBX_PALLAS_INTERPRET', '1')
+    monkeypatch.setattr(
+        ensemble_stats, 'kernel_for',
+        lambda backend: functools.partial(
+            ensemble_stats.fused_ensemble_stats, interpret=True))
     r_metrics = {
         'crps': ref.probabilistic.CRPSEnsemble(use_sort=True),
         'spread_skill': ref.probabilistic.UnbiasedSpreadSkillRatio(),
@@ -432,8 +436,8 @@ class TestProbabilisticParity:
                 ref_agg(ref, bin_by=[ref.binning.Regions(
                     regions=regions, bin_dim_name='region')], skipna=True),
                 rp, rt)
-    t = run_tpu(t_metrics,
-                tpu_agg(bin_by=[t_binning.Regions(
+    t = run_wbx(t_metrics,
+                wbx_agg(bin_by=[t_binning.Regions(
                     regions=regions, bin_dim_name='region')], skipna=True),
                 tp, tt)
     compare_results(r, t)
@@ -442,8 +446,8 @@ class TestProbabilisticParity:
     rp, tp, rt, tt = self._pair(ref)
     r = run_ref(ref, {'rank_histogram': ref.probabilistic.RankHistogram()},
                 ref_agg(ref), rp, rt)
-    t = run_tpu({'rank_histogram': t_probabilistic.RankHistogram()},
-                tpu_agg(), tp, tt)
+    t = run_wbx({'rank_histogram': t_probabilistic.RankHistogram()},
+                wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_ensemble_targets_distance_and_wasserstein(self, ref):
@@ -459,7 +463,7 @@ class TestProbabilisticParity:
     t_metrics = {'crps_distance': t_probabilistic.CRPSEnsembleDistance(),
                  'wasserstein': t_probabilistic.WassersteinDistance()}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_rev_all_thresholds_and_optimal(self, ref):
@@ -478,7 +482,7 @@ class TestProbabilisticParity:
     t_metrics = {'rev': t_probabilistic.RelativeEconomicValue(
         ensemble_size=N_ENS, cost_loss_ratios=clr)}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
     # Optimal-threshold selection (reference probabilistic.py:883-936).
@@ -498,7 +502,7 @@ class TestProbabilisticParity:
         ensemble_size=N_ENS, cost_loss_ratios=clr,
         optimal_thresholds=t_opt)}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
 
@@ -517,14 +521,14 @@ class TestCategoricalAndSpatialParity:
         'total_precipitation_24hr_seeps_threshold': thr.to_ref(ref),
         'total_precipitation_24hr_seeps_dry_fraction': dfr.to_ref(ref)})
     t_clim = {
-        'total_precipitation_24hr_seeps_threshold': thr.to_tpu(),
-        'total_precipitation_24hr_seeps_dry_fraction': dfr.to_tpu()}
+        'total_precipitation_24hr_seeps_threshold': thr.to_wbx(),
+        'total_precipitation_24hr_seeps_dry_fraction': dfr.to_wbx()}
     r_metrics = {'seeps': ref.categorical.SEEPS(
         variables=['total_precipitation_24hr'], climatology=r_clim)}
     t_metrics = {'seeps': t_categorical.SEEPS(
         variables=['total_precipitation_24hr'], climatology=t_clim)}
     r = run_ref(ref, r_metrics, ref_agg(ref, masked=True), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(masked=True), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(masked=True), tp, tt)
     compare_results(r, t)
 
   def test_confusion_suite_via_binary_wrapper(self, ref):
@@ -557,7 +561,7 @@ class TestCategoricalAndSpatialParity:
                              which='both', threshold_value=[0.25, 0.75],
                              threshold_dim='threshold'))
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_fss(self, ref):
@@ -573,7 +577,7 @@ class TestCategoricalAndSpatialParity:
       t_metrics = {'fss': t_spatial.FSS(
           neighborhood_size_in_pixels=[1, 3, 5], wrap_longitude=wrap)}
       r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-      t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+      t = run_wbx(t_metrics, wbx_agg(), tp, tt)
       compare_results(r, t)
 
 
@@ -626,7 +630,7 @@ class TestWrapperParity:
             bin_dim='rps_bin', unique_name_suffix='parity'),
     }
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
 
@@ -667,13 +671,13 @@ class TestAggregatorModeParity:
                             bin_dim_name='region'),
         ref.binning.LatitudeBins(degrees=45,
                                  bin_dim_name='lat_band')])
-    t_agg_ = tpu_agg(bin_by=[
+    t_agg_ = wbx_agg(bin_by=[
         t_binning.Regions(regions=regions, land_sea_mask=t_land,
                           bin_dim_name='region'),
         t_binning.LatitudeBins(degrees=45,
                                bin_dim_name='lat_band')])
     r = run_ref(ref, rm, r_agg, rp, rt)
-    t = run_tpu(tm, t_agg_, tp, tt)
+    t = run_wbx(tm, t_agg_, tp, tt)
     compare_results(r, t)
 
   def test_skipna_and_nan_propagation(self, ref):
@@ -682,11 +686,11 @@ class TestAggregatorModeParity:
     rm, tm = self._metrics(ref)
     # skipna=True: NaNs dropped from both numerator and weights.
     r = run_ref(ref, rm, ref_agg(ref, skipna=True), rp, rt)
-    t = run_tpu(tm, tpu_agg(skipna=True), tp, tt)
+    t = run_wbx(tm, wbx_agg(skipna=True), tp, tt)
     compare_results(r, t)
     # skipna=False: NaN propagates (both frameworks must agree on WHERE).
     r = run_ref(ref, rm, ref_agg(ref), rp, rt)
-    t = run_tpu(tm, tpu_agg(), tp, tt)
+    t = run_wbx(tm, wbx_agg(), tp, tt)
     compare_results(r, t)
     assert np.isnan(np.asarray(t['rmse.2m_temperature'].data)).any()
 
@@ -695,7 +699,7 @@ class TestAggregatorModeParity:
     rm, tm = self._metrics(ref)
     r = run_ref(ref, rm, ref_agg(ref, reduce_dims=['latitude', 'longitude']),
                 rp, rt)
-    t = run_tpu(tm, tpu_agg(reduce_dims=['latitude', 'longitude']), tp, tt)
+    t = run_wbx(tm, wbx_agg(reduce_dims=['latitude', 'longitude']), tp, tt)
     compare_results(r, t)
 
 
@@ -729,19 +733,19 @@ class TestStateInterop:
     return ref_agg(ref, reduce_dims=['latitude', 'longitude']
                    ).aggregate_statistics(stats)
 
-  def _tpu_state(self, t_metrics, tp, tt):
+  def _wbx_state(self, t_metrics, tp, tt):
     stats = t_base.compute_unique_statistics_for_all_metrics(
         t_metrics, dict(tp), dict(tt))
-    return tpu_agg(reduce_dims=['latitude', 'longitude']
+    return wbx_agg(reduce_dims=['latitude', 'longitude']
                    ).aggregate_statistics(stats)
 
-  def test_reference_state_restored_by_tpu(self, ref, tmp_path):
+  def test_reference_state_restored_by_wbx(self, ref, tmp_path):
     rp, tp, rt, tt, r_metrics, t_metrics = self._setup(ref)
     r_state = self._ref_state(ref, r_metrics, rp, rt)
     r_values = r_state.metric_values(r_metrics)
 
     # Serialize with the ACTUAL reference writer (to_dataset '#' schema),
-    # convert the resulting arrays verbatim, restore on the tpu side.
+    # convert the resulting arrays verbatim, restore on the wbx side.
     r_ds = r_state.to_dataset()
     as_dim = {}
     for key in r_ds.keys():
@@ -764,9 +768,9 @@ class TestStateInterop:
     t_values2 = loaded.metric_values(t_metrics)
     compare_results(r_values, t_values2, atol=1e-6)
 
-  def test_tpu_state_restored_by_reference(self, ref):
+  def test_wbx_state_restored_by_reference(self, ref):
     rp, tp, rt, tt, r_metrics, t_metrics = self._setup(ref)
-    t_state = self._tpu_state(t_metrics, tp, tt).to_host()
+    t_state = self._wbx_state(t_metrics, tp, tt).to_host()
     t_values = t_state.metric_values(t_metrics)
 
     t_ds = t_state.to_dataset()
@@ -783,7 +787,7 @@ class TestStateInterop:
     compare_results(r_values, t_values, atol=1e-6)
 
   def test_chunked_sum_matches_across_frameworks(self, ref):
-    """Chunk on the tpu side, sum states, compare against UNchunked ref."""
+    """Chunk on the wbx side, sum states, compare against UNchunked ref."""
     rp, tp, rt, tt, r_metrics, t_metrics = self._setup(ref)
     r_state = self._ref_state(ref, r_metrics, rp, rt)
     r_values = r_state.metric_values(r_metrics)
@@ -795,7 +799,7 @@ class TestStateInterop:
     for sl in (slice(0, 1), slice(1, 3), slice(3, None)):
       stats = t_base.compute_unique_statistics_for_all_metrics(
           t_metrics, isel_init(tp, sl), isel_init(tt, sl))
-      parts.append(tpu_agg(reduce_dims=['latitude', 'longitude']
+      parts.append(wbx_agg(reduce_dims=['latitude', 'longitude']
                            ).aggregate_statistics(stats))
     summed = t_aggregation.AggregationState.sum(parts)
     t_values = summed.metric_values(t_metrics)
@@ -889,7 +893,7 @@ class TestInferenceParity:
     r_state = ref_agg(ref, reduce_dims=reduce).aggregate_statistics(r_stats)
     t_stats = t_base.compute_unique_statistics_for_all_metrics(
         t_metrics, dict(tp), dict(tt))
-    t_state = tpu_agg(reduce_dims=reduce).aggregate_statistics(t_stats)
+    t_state = wbx_agg(reduce_dims=reduce).aggregate_statistics(t_stats)
     return r_metrics, r_state, t_metrics, t_state
 
   def _compare_nested(self, r_map, t_map, atol=1e-5, rtol=1e-5):
@@ -951,7 +955,7 @@ class TestInferenceParity:
     r_state2 = ref_agg(ref, reduce_dims=reduce).aggregate_statistics(
         ref.base.compute_unique_statistics_for_all_metrics(
             r_metrics, rp2, rt2))
-    t_state2 = tpu_agg(reduce_dims=reduce).aggregate_statistics(
+    t_state2 = wbx_agg(reduce_dims=reduce).aggregate_statistics(
         t_base.compute_unique_statistics_for_all_metrics(
             t_metrics, tp2, tt2))
     r_inf = ref.si_t_test.IID.for_baseline_comparison(
@@ -1029,7 +1033,7 @@ class TestBootstrapParity:
     r_state = ref_agg(ref, reduce_dims=reduce).aggregate_statistics(
         ref.base.compute_unique_statistics_for_all_metrics(
             r_metrics, dict(rp), dict(rt)))
-    t_state = tpu_agg(reduce_dims=reduce).aggregate_statistics(
+    t_state = wbx_agg(reduce_dims=reduce).aggregate_statistics(
         t_base.compute_unique_statistics_for_all_metrics(
             t_metrics, dict(tp), dict(tt)))
     return r_metrics, r_state, t_metrics, t_state
@@ -1148,7 +1152,7 @@ class TestExtendedCoverageParity:
             thresholds=[0.005, 0.01]),
     }
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_reliability(self, ref):
@@ -1162,8 +1166,8 @@ class TestExtendedCoverageParity:
     rt, tt = both(ref, tvars)
     r = run_ref(ref, {'reliability': ref.categorical.Reliability()},
                 ref_agg(ref), rp, rt)
-    t = run_tpu({'reliability': t_categorical.Reliability()},
-                tpu_agg(), tp, tt)
+    t = run_wbx({'reliability': t_categorical.Reliability()},
+                wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_opportunism_trio(self, ref):
@@ -1186,7 +1190,7 @@ class TestExtendedCoverageParity:
         'latitude': LATS, 'longitude': LONS})}
     mk_ref = lambda **kw: ref.categorical.Opportunism(
         ensemble_dim='number', climatology=r_clim, **kw)
-    mk_tpu = lambda **kw: t_categorical.Opportunism(
+    mk_wbx = lambda **kw: t_categorical.Opportunism(
         ensemble_dim='number', climatology=t_clim, **kw)
     r_metrics = {
         'opp_conf': mk_ref(is_confident=True),
@@ -1194,12 +1198,12 @@ class TestExtendedCoverageParity:
         'opp_jac': mk_ref(is_confident=False, is_jaccard_distant=True),
     }
     t_metrics = {
-        'opp_conf': mk_tpu(is_confident=True),
-        'opp_cov': mk_tpu(is_confident=True, is_covered=True),
-        'opp_jac': mk_tpu(is_confident=False, is_jaccard_distant=True),
+        'opp_conf': mk_wbx(is_confident=True),
+        'opp_cov': mk_wbx(is_confident=True, is_covered=True),
+        'opp_jac': mk_wbx(is_confident=False, is_jaccard_distant=True),
     }
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_remaining_wrappers(self, ref):
@@ -1234,15 +1238,15 @@ class TestExtendedCoverageParity:
     # 'stacked' reduces over a new dim -> use matching reduce dims.
     r1 = run_ref(ref, {k: v for k, v in r_metrics.items() if k != 'stacked'},
                  ref_agg(ref), rp, rt)
-    t1 = run_tpu({k: v for k, v in t_metrics.items() if k != 'stacked'},
-                 tpu_agg(), tp, tt)
+    t1 = run_wbx({k: v for k, v in t_metrics.items() if k != 'stacked'},
+                 wbx_agg(), tp, tt)
     compare_results(r1, t1)
     r2 = run_ref(ref, {'stacked': r_metrics['stacked']},
                  ref_agg(ref, reduce_dims=['sample', 'latitude',
                                            'longitude'], weigh_by=[]),
                  rp, rt)
-    t2 = run_tpu({'stacked': t_metrics['stacked']},
-                 tpu_agg(reduce_dims=['sample', 'latitude', 'longitude'],
+    t2 = run_wbx({'stacked': t_metrics['stacked']},
+                 wbx_agg(reduce_dims=['sample', 'latitude', 'longitude'],
                          weigh_by=[]), tp, tt)
     compare_results(r2, t2)
 
@@ -1274,7 +1278,7 @@ class TestExtendedCoverageParity:
       reduce = ['init_time', 'latitude', 'longitude']
       r = run_ref(ref, metrics_r, ref_agg(ref, bin_by=[mk_r()],
                                           reduce_dims=reduce), rp, rt)
-      t = run_tpu(metrics_t, tpu_agg(bin_by=[mk_t()], reduce_dims=reduce),
+      t = run_wbx(metrics_t, wbx_agg(bin_by=[mk_t()], reduce_dims=reduce),
                   tp, tt)
       compare_results(r, t)
 
@@ -1290,7 +1294,7 @@ class TestExtendedCoverageParity:
     t_metrics = {'pred_pass': t_deterministic.PredictionPassthrough(),
                  'targ_pass': t_deterministic.TargetPassthrough()}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_ensemble_error_exceedance(self, ref):
@@ -1304,7 +1308,7 @@ class TestExtendedCoverageParity:
     t_metrics = {'ens_ee': t_probabilistic.EnsembleErrorExceedance(
         thresholds=[0.2, 0.5])}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_ensemble_averaged_metric(self, ref):
@@ -1333,7 +1337,7 @@ class TestExtendedCoverageParity:
               skipna_ensemble=skipna),
       }
       r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-      t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+      t = run_wbx(t_metrics, wbx_agg(), tp, tt)
       compare_results(r, t)
 
   def test_time_unit_set_binnings(self, ref):
@@ -1375,7 +1379,7 @@ class TestExtendedCoverageParity:
     for name, mk_r, mk_t in cases:
       r = run_ref(ref, metrics_r, ref_agg(ref, bin_by=[mk_r()],
                                           reduce_dims=reduce), rp, rt)
-      t = run_tpu(metrics_t, tpu_agg(bin_by=[mk_t()], reduce_dims=reduce),
+      t = run_wbx(metrics_t, wbx_agg(bin_by=[mk_t()], reduce_dims=reduce),
                   tp, tt)
       compare_results(r, t)
 
@@ -1415,7 +1419,7 @@ class TestExtendedCoverageParity:
     r_metrics = build(ref.wrappers, ref.deterministic, ref.categorical)
     t_metrics = build(t_wrappers, t_deterministic, t_categorical)
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_time_dependent_cdf_thresholds(self, ref):
@@ -1445,7 +1449,7 @@ class TestExtendedCoverageParity:
                                     threshold_dim='cdf_bin',
                                     unique_name_suffix='doy_thr')])}
     r = run_ref(ref, r_metrics, ref_agg(ref), rp, rt)
-    t = run_tpu(t_metrics, tpu_agg(), tp, tt)
+    t = run_wbx(t_metrics, wbx_agg(), tp, tt)
     compare_results(r, t)
 
   def test_time_dim_climatology(self, ref):
@@ -1465,8 +1469,8 @@ class TestExtendedCoverageParity:
                              'longitude': LONS})}
     r = run_ref(ref, {'acc': ref.deterministic.ACC(climatology=r_clim)},
                 ref_agg(ref), rp, rt)
-    t = run_tpu({'acc': t_deterministic.ACC(climatology=t_clim)},
-                tpu_agg(), tp, tt)
+    t = run_wbx({'acc': t_deterministic.ACC(climatology=t_clim)},
+                wbx_agg(), tp, tt)
     compare_results(r, t)
 
 
@@ -1523,7 +1527,7 @@ class TestExtendedCoverageParity:
       r = run_ref(ref, {'mse': ref.deterministic.MSE()},
                   ref.aggregation.Aggregator(reduce_dims=['index'],
                                              bin_by=[mk_r()]), rp, rt)
-      t = run_tpu({'mse': t_deterministic.MSE()},
+      t = run_wbx({'mse': t_deterministic.MSE()},
                   t_aggregation.Aggregator(reduce_dims=['index'],
                                            bin_by=[mk_t()]), tp, tt)
       compare_results(r, t)
@@ -1805,7 +1809,7 @@ class TestLoaderParity:
 
 
 def compare_da(r, t, atol=1e-5, rtol=1e-5, check_coords=()):
-  """Compare one reference (shim) DataArray with one tpu DimArray."""
+  """Compare one reference (shim) DataArray with one wbx DimArray."""
   assert set(r.dims) == set(t.dims), (r.dims, t.dims)
   rv = np.asarray(r.transpose(*t.dims).values, dtype=np.float64)
   tv = np.asarray(t.data, dtype=np.float64)
@@ -1846,7 +1850,7 @@ class TestInterpolationParity:
     r_da = v.to_ref(ref)
     # Descending-latitude input: the reference sorts before cropping.
     r_da = r_da.isel(latitude=np.arange(len(LATS))[::-1])
-    t_da = v.to_tpu().isel({'latitude': np.arange(len(LATS))[::-1]})
+    t_da = v.to_wbx().isel({'latitude': np.arange(len(LATS))[::-1]})
     r = ref.interpolations.CropToBox(-45.0, 45.0, 100.0, 260.0
                                      ).interpolate_data_array(r_da)
     t = t_interp.CropToBox(-45.0, 45.0, 100.0, 260.0
@@ -1873,7 +1877,7 @@ class TestInterpolationParity:
             v.to_ref(ref))
     t = t_interp.InterpolateToFixedCoords(
         method=method, coords=coords, wrap_longitude=wrap,
-        extrapolate_out_of_bounds=extrap).interpolate_data_array(v.to_tpu())
+        extrapolate_out_of_bounds=extrap).interpolate_data_array(v.to_wbx())
     compare_da(r, t, check_coords=('latitude', 'longitude'))
 
   @pytest.mark.parametrize('seed', range(8))
@@ -1909,7 +1913,7 @@ class TestInterpolationParity:
             v.to_ref(ref))
     tt = t_interp.InterpolateToFixedCoords(
         method=method, coords=coords, wrap_longitude=wrap,
-        extrapolate_out_of_bounds=extrap).interpolate_data_array(v.to_tpu())
+        extrapolate_out_of_bounds=extrap).interpolate_data_array(v.to_wbx())
     compare_da(rr, tt, check_coords=('latitude', 'longitude'))
 
   def test_interpolate_to_reference_coords_regrid(self, ref):
@@ -1929,12 +1933,12 @@ class TestInterpolationParity:
 
     r_ref = subset(tv, ref)
     t_ref = t_interp.interpolate_to_coords(
-        tv.to_tpu(), {'latitude': ref_lats, 'longitude': ref_lons},
+        tv.to_wbx(), {'latitude': ref_lats, 'longitude': ref_lons},
         'nearest')
     r = ref.interpolations.InterpolateToReferenceCoords(
         method='linear').interpolate_data_array(v.to_ref(ref), r_ref)
     t = t_interp.InterpolateToReferenceCoords(
-        method='linear').interpolate_data_array(v.to_tpu(), t_ref)
+        method='linear').interpolate_data_array(v.to_wbx(), t_ref)
     compare_da(r, t, check_coords=('latitude', 'longitude'))
 
   def _sparse_reference(self, ref, n=25, seed=77):
@@ -1972,7 +1976,7 @@ class TestInterpolationParity:
         ).interpolate_data_array(v.to_ref(ref), r_ref)
     t = t_interp.InterpolateToReferenceCoords(
         method=method, dims=['latitude', 'longitude'], wrap_longitude=True
-        ).interpolate_data_array(v.to_tpu(), t_ref)
+        ).interpolate_data_array(v.to_wbx(), t_ref)
     assert 'index' in t.dims and 'latitude' not in t.dims
     compare_da(r, t, check_coords=('latitude', 'longitude', 'elevation',
                                    'stationName'))
@@ -1996,7 +2000,7 @@ class TestInterpolationParity:
       da = var.to_ref(ref)
       da.name = name
       r_ds[name] = da
-      t_ds[name] = var.to_tpu()
+      t_ds[name] = var.to_wbx()
     r_sparse, t_sparse = self._sparse_reference(ref)
     r_refs = {k: r_sparse for k in variables}
     t_refs = {k: t_sparse for k in variables}
@@ -2024,7 +2028,7 @@ class TestInterpolationParity:
     r = ref.interpolations.NeighborhoodThresholdProbabilities(
         **kw).interpolate_data_array(v.to_ref(ref))
     t = t_interp.NeighborhoodThresholdProbabilities(
-        **kw).interpolate_data_array(v.to_tpu())
+        **kw).interpolate_data_array(v.to_wbx())
     compare_da(r, t, check_coords=('smoothing_neighborhood',))
 
   def test_subsample_and_multiple(self, ref):
@@ -2038,7 +2042,7 @@ class TestInterpolationParity:
     t = t_interp.MultipleInterpolation([
         t_interp.CropToBox(-60.0, 60.0, 20.0, 300.0),
         t_interp.Subsample(dims=['latitude', 'longitude'], stride=2),
-    ]).interpolate_data_array(v.to_tpu())
+    ]).interpolate_data_array(v.to_wbx())
     compare_da(r, t, check_coords=('latitude', 'longitude'))
 
   def test_empty_reference_guard(self, ref):
@@ -2050,7 +2054,7 @@ class TestInterpolationParity:
         ).interpolate_data_array(v.to_ref(ref), r_ref)
     t = t_interp.InterpolateToReferenceCoords(
         method='linear', dims=['latitude', 'longitude']
-        ).interpolate_data_array(v.to_tpu(), t_ref)
+        ).interpolate_data_array(v.to_wbx(), t_ref)
     assert set(r.dims) == set(t.dims)
     assert r.sizes['index'] == t.sizes['index'] == 0
     assert r.sizes['init_time'] == t.sizes['init_time'] == N_INIT
@@ -2349,7 +2353,7 @@ class TestRandomizedConfigParity:
   def _paired_metric(self, ref, name, seed=0):
     clim = {'2m_temperature': clim_var(4000 + seed)}
     r_clim = ref.xr.Dataset({k: v.to_ref(ref) for k, v in clim.items()})
-    t_clim = {k: v.to_tpu() for k, v in clim.items()}
+    t_clim = {k: v.to_wbx() for k, v in clim.items()}
     table = {
         'rmse': (ref.deterministic.RMSE, t_deterministic.RMSE),
         'mse': (ref.deterministic.MSE, t_deterministic.MSE),
@@ -2461,7 +2465,7 @@ class TestRandomizedConfigParity:
       t_kw['weigh_by'] = []
 
     rr = run_ref(ref, rm, ref_agg(ref, **r_kw), rp, rt)
-    tv = run_tpu(tm, tpu_agg(**t_kw), tp, tt)
+    tv = run_wbx(tm, wbx_agg(**t_kw), tp, tt)
     compare_results(rr, tv)
 
   @pytest.mark.parametrize('seed', range(8))
@@ -2530,7 +2534,7 @@ class TestRandomizedConfigParity:
     if not r.integers(2):
       kw['weigh_by'] = []
     rr = run_ref(ref, rm, ref_agg(ref, **dict(kw)), rp, rt)
-    tv = run_tpu(tm, tpu_agg(**dict(kw)), tp, tt)
+    tv = run_wbx(tm, wbx_agg(**dict(kw)), tp, tt)
     compare_results(rr, tv)
 
   @pytest.mark.parametrize('seed', range(8))
@@ -2565,7 +2569,7 @@ class TestRandomizedConfigParity:
     tm = {'fss': t_spatial.FSS(neighborhood_size_in_pixels=sizes,
                                wrap_longitude=wrap)}
     rr = run_ref(ref, rm, ref_agg(ref, reduce_dims=reduce), rp, rt)
-    tv_ = run_tpu(tm, tpu_agg(reduce_dims=reduce), tp, tt)
+    tv_ = run_wbx(tm, wbx_agg(reduce_dims=reduce), tp, tt)
     compare_results(rr, tv_)
 
     # Rank histogram (NaN-free: see docstring) with random skipna.
@@ -2576,7 +2580,7 @@ class TestRandomizedConfigParity:
     tm = {'rank_histogram': t_probabilistic.RankHistogram()}
     rr = run_ref(ref, rm, ref_agg(ref, reduce_dims=reduce, skipna=skipna),
                  rp, rt)
-    tv_ = run_tpu(tm, tpu_agg(reduce_dims=reduce, skipna=skipna), tp, tt)
+    tv_ = run_wbx(tm, wbx_agg(reduce_dims=reduce, skipna=skipna), tp, tt)
     compare_results(rr, tv_)
 
   @pytest.mark.parametrize('seed', range(8))
@@ -2607,8 +2611,8 @@ class TestRandomizedConfigParity:
         'total_precipitation_24hr_seeps_threshold': thr.to_ref(ref),
         'total_precipitation_24hr_seeps_dry_fraction': dfr.to_ref(ref)})
     t_clim = {
-        'total_precipitation_24hr_seeps_threshold': thr.to_tpu(),
-        'total_precipitation_24hr_seeps_dry_fraction': dfr.to_tpu()}
+        'total_precipitation_24hr_seeps_threshold': thr.to_wbx(),
+        'total_precipitation_24hr_seeps_dry_fraction': dfr.to_wbx()}
     seeps_kw = dict(
         variables=['total_precipitation_24hr'],
         dry_threshold_mm=float(r.choice([0.1, 0.25, 1.0])),
@@ -2630,5 +2634,5 @@ class TestRandomizedConfigParity:
       t_kw['bin_by'] = [t_binning.Regions(regions=regions,
                                           bin_dim_name='region')]
     rr = run_ref(ref, rm, ref_agg(ref, **r_kw), rp, rt)
-    tv = run_tpu(tm, tpu_agg(**t_kw), tp, tt)
+    tv = run_wbx(tm, wbx_agg(**t_kw), tp, tt)
     compare_results(rr, tv)

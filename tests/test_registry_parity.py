@@ -39,7 +39,7 @@ def ref_configs():
 
 
 @pytest.fixture(scope='module')
-def tpu_configs():
+def wbx_configs():
   from weatherbenchx_tpu.apps import configs
   return configs
 
@@ -54,21 +54,21 @@ REGISTRIES = ['deterministic_prediction_configs',
 class TestRegistryParity:
 
   @pytest.mark.parametrize('name', REGISTRIES)
-  def test_every_reference_key_present(self, ref_configs, tpu_configs, name):
+  def test_every_reference_key_present(self, ref_configs, wbx_configs, name):
     ref = getattr(ref_configs, name)
     ref = ref() if callable(ref) else ref
-    tpu = getattr(tpu_configs, name)
-    tpu = tpu() if callable(tpu) else tpu
-    missing = sorted(set(ref) - set(tpu))
+    wbx = getattr(wbx_configs, name)
+    wbx = wbx() if callable(wbx) else wbx
+    missing = sorted(set(ref) - set(wbx))
     assert not missing, f'{name}: reference keys missing from repo: {missing}'
 
   @pytest.mark.parametrize('name', REGISTRIES)
-  def test_no_phantom_keys(self, ref_configs, tpu_configs, name):
+  def test_no_phantom_keys(self, ref_configs, wbx_configs, name):
     ref = getattr(ref_configs, name)
     ref = ref() if callable(ref) else ref
-    tpu = getattr(tpu_configs, name)
-    tpu = tpu() if callable(tpu) else tpu
-    extra = sorted(set(tpu) - set(ref))
+    wbx = getattr(wbx_configs, name)
+    wbx = wbx() if callable(wbx) else wbx
+    extra = sorted(set(wbx) - set(ref))
     if name == 'climatology_configs':
       # Waiver: unversioned aliases era5_<res> (see module docstring), and
       # 2016 entries for all resolutions (the reference only lists
@@ -79,28 +79,28 @@ class TestRegistryParity:
     assert not extra, f'{name}: repo keys not in reference: {extra}'
 
   @pytest.mark.parametrize('name', REGISTRIES)
-  def test_entry_fields_match(self, ref_configs, tpu_configs, name):
+  def test_entry_fields_match(self, ref_configs, wbx_configs, name):
     ref = getattr(ref_configs, name)
     ref = ref() if callable(ref) else ref
-    tpu = getattr(tpu_configs, name)
-    tpu = tpu() if callable(tpu) else tpu
+    wbx = getattr(wbx_configs, name)
+    wbx = wbx() if callable(wbx) else wbx
     for key, ref_entry in ref.items():
-      tpu_entry = tpu[key]
-      assert tpu_entry.get('path') == ref_entry.get('path'), (
+      wbx_entry = wbx[key]
+      assert wbx_entry.get('path') == ref_entry.get('path'), (
           name, key, 'path')
       if 'variables' in ref_entry:
-        assert sorted(tpu_entry.get('variables', [])) == sorted(
+        assert sorted(wbx_entry.get('variables', [])) == sorted(
             ref_entry['variables']), (name, key, 'variables')
       if 'levels' in ref_entry:
-        assert list(tpu_entry.get('levels', [])) == list(
+        assert list(wbx_entry.get('levels', [])) == list(
             ref_entry['levels']), (name, key, 'levels')
       ref_dlk = ref_entry.get('data_loader_kwargs', {})
-      tpu_dlk = tpu_entry.get('data_loader_kwargs', {})
+      wbx_dlk = wbx_entry.get('data_loader_kwargs', {})
       for field in ('rename_dimensions', 'rename_variables',
                     'add_nan_mask'):
         if field in ref_dlk:
-          assert field in tpu_dlk, (name, key, field)
-          assert tpu_dlk[field] == ref_dlk[field], (name, key, field)
+          assert field in wbx_dlk, (name, key, field)
+          assert wbx_dlk[field] == ref_dlk[field], (name, key, field)
 
   def test_special_prediction_kinds_supported(self):
     """The CLI handles the loader-dispatch prediction names the reference

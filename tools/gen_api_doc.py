@@ -49,9 +49,11 @@ MODULES = [
     'weatherbenchx_tpu.inference.baseline_comparison',
     'weatherbenchx_tpu.ops.conv',
     'weatherbenchx_tpu.ops.interp',
-    'weatherbenchx_tpu.ops.crps_pairwise',
+    'weatherbenchx_tpu.ops.ensemble_stats',
     'weatherbenchx_tpu.native',
     'weatherbenchx_tpu.observability',
+    'weatherbenchx_tpu.compile_cache',
+    'weatherbenchx_tpu.datetimes',
     'weatherbenchx_tpu.test_utils',
 ]
 

@@ -1,4 +1,4 @@
-"""Generates the /tmp/demo fixtures for the canonical verify drive.
+"""Generates the demo fixtures for the canonical verify drive.
 
 Construction (64x32 grid, January 2020, 12 h inits, 40 6-h leads):
   target(valid)      = clim(doy, hour) + z_common(valid) + z_t(valid)
@@ -11,7 +11,7 @@ dim names (time / prediction_timedelta / latitude / longitude / level) so
 the benchmark CLI's renaming path is exercised (reference
 ``xarray_loaders.py:25-53``).
 
-Usage: python tools/gen_demo_fixtures.py [outdir=/tmp/demo]
+Usage: python tools/gen_demo_fixtures.py [outdir=<checkout>/.stores/demo]
 """
 
 import os
@@ -25,7 +25,11 @@ from weatherbenchx_tpu import io as io_lib
 from weatherbenchx_tpu.darray import Coord, DimArray
 
 
-def main(outdir: str = '/tmp/demo') -> None:
+DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), '.stores', 'demo')
+
+
+def main(outdir: str = DEFAULT_DIR) -> None:
   os.makedirs(outdir, exist_ok=True)
   rng = np.random.default_rng(20200101)
 

@@ -2,7 +2,7 @@
 
 Purpose: the round-3 reference-parity harness (tests/test_reference_parity.py)
 must execute the actual upstream weatherbenchX code (/root/reference) against
-this repo's independent TPU-native implementation on identical fixtures. The
+this repo's independent JAX implementation on identical fixtures. The
 upstream code depends on the real ``xarray`` package, which is not installable
 in this environment (no network egress). This shim implements the subset of the
 xarray API that the reference's *single-chunk ground-truth path* uses

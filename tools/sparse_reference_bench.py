@@ -75,7 +75,9 @@ def main():
   p.add_argument('--max_chunks', type=int, default=0,
                  help='bound the walk for quick runs (0 = all chunks, '
                  'obs/s extrapolates from rows actually covered)')
-  p.add_argument('--workdir', default='/tmp/wbx_sparse_demo')
+  p.add_argument('--workdir', default=os.path.join(
+      os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+      '.stores', 'sparse_demo'))
   p.add_argument('--profile', action='store_true',
                  help='cProfile the chunk walk and attribute self-time '
                  'by module family (refshim vs upstream vs pandas/'

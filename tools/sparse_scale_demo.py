@@ -83,7 +83,9 @@ def main():
   p.add_argument('--init_freq_h', type=int, default=12)
   p.add_argument('--leads_h', default='6,12,24,48')
   p.add_argument('--cache_files', type=int, default=2)
-  p.add_argument('--workdir', default='/tmp/wbx_sparse_demo')
+  p.add_argument('--workdir', default=os.path.join(
+      os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+      '.stores', 'sparse_demo'))
   args = p.parse_args()
 
   from weatherbenchx_tpu import aggregation, binning, interpolations

@@ -1,4 +1,4 @@
-"""weatherbenchx_tpu: a TPU-native forecast-verification framework.
+"""weatherbenchx_tpu: a JAX forecast-verification framework.
 
 A ground-up JAX/XLA re-design of the WeatherBench-X evaluation engine:
 statistics are pure jnp functions over named arrays, aggregation is a fused

@@ -1,6 +1,6 @@
 """Combines per-(model, year, resolution) results into one scorecard.
 
-TPU equivalent of ``public_benchmark/combine_results.py:221-303``: reads
+JAX equivalent of ``public_benchmark/combine_results.py:221-303``: reads
 each model's metric file, renames metrics/regions/variables, stacks
 metrics into a 'metric' dim and models into a 'model' dim, writes one
 scorecard dataset (.npz container; export to Zarr/netCDF via

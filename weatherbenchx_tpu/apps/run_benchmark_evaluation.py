@@ -1,6 +1,6 @@
 """WeatherBench benchmark evaluation CLI.
 
-TPU equivalent of ``public_benchmark/run_benchmark_evaluation.py:66-409``:
+JAX equivalent of ``public_benchmark/run_benchmark_evaluation.py:66-409``:
 config-registry lookup, deterministic vs probabilistic metric sets (SEEPS
 with climatology, ACC/activity, sort-form CRPS, spread/skill), 17
 ECMWF-style regions with land bins, area weighting, masked aggregation,
@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from weatherbenchx_tpu import aggregation, binning, weighting
+from weatherbenchx_tpu import aggregation, binning, compile_cache, weighting
 from weatherbenchx_tpu import io as io_lib
 from weatherbenchx_tpu import time_chunks as time_chunks_lib
 from weatherbenchx_tpu.apps import configs as configs_lib
@@ -71,7 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--climatology_path', default=None)
   p.add_argument('--checkpoint_every', type=int, default=0)
   p.add_argument('--compilation_cache_dir', default=None,
-                 help='Persistent XLA compilation cache directory')
+                 help='Persistent XLA compilation cache directory, used '
+                      'when JAX_COMPILATION_CACHE_DIR is unset (default: '
+                      '<checkout>/.jax_cache)')
   p.add_argument('--chunks_per_dispatch', type=int, default=1,
                  help='Structurally-identical chunks evaluated per XLA '
                       'dispatch (amortizes dispatch latency)')
@@ -106,6 +108,7 @@ def _open_dataset(path: str) -> dict[str, DimArray]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = build_parser().parse_args(argv)
+  compile_cache.enable(args.compilation_cache_dir)
 
   # 1. Config lookup (registry or explicit path overrides).
   # Special prediction kinds resolve against the era5 target/climatology
@@ -331,7 +334,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       times, out_path=out_path,
       checkpoint_path=(out_path + '.ckpt' if args.checkpoint_every else None),
       checkpoint_every=args.checkpoint_every,
-      compilation_cache_dir=args.compilation_cache_dir,
       chunks_per_dispatch=args.chunks_per_dispatch,
       chunk_stats_sink=stats_store.write_chunk if stats_store else None,
       retry=run_evaluation.retry_policy_from_args(args))

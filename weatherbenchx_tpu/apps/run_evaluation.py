@@ -1,9 +1,9 @@
 """Example evaluation CLI: RMSE/MSE with area weighting and region bins.
 
-The TPU equivalent of the reference's
+The JAX equivalent of the reference's
 ``evaluation_scripts/run_example_evaluation.py:60-201`` — same flags, same
 metric/aggregation setup, with the Beam pipeline replaced by the
-single-controller TPU driver.
+single-controller device driver.
 
 Example:
   python -m weatherbenchx_tpu.apps.run_evaluation \
@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from weatherbenchx_tpu import aggregation, binning, weighting
+from weatherbenchx_tpu import aggregation, binning, compile_cache, weighting
 from weatherbenchx_tpu import time_chunks as time_chunks_lib
 from weatherbenchx_tpu.data import loaders
 from weatherbenchx_tpu.metrics import deterministic
@@ -69,7 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                  help='Optional running-state checkpoint path (resume)')
   p.add_argument('--checkpoint_every', type=int, default=0)
   p.add_argument('--compilation_cache_dir', default=None,
-                 help='Persistent XLA compilation cache directory')
+                 help='Persistent XLA compilation cache directory, used '
+                      'when JAX_COMPILATION_CACHE_DIR is unset (default: '
+                      '<checkout>/.jax_cache)')
   p.add_argument('--chunks_per_dispatch', type=int, default=1,
                  help='Structurally-identical chunks evaluated per XLA '
                       'dispatch (amortizes dispatch latency)')
@@ -95,6 +97,7 @@ def retry_policy_from_args(args) -> Optional[pipeline_lib.RetryPolicy]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = build_parser().parse_args(argv)
+  compile_cache.enable(args.compilation_cache_dir)
 
   init_times = np.arange(
       args.time_start, args.time_stop,
@@ -133,7 +136,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       aggregation_state_out_path=args.aggregation_state_output_path,
       checkpoint_path=args.checkpoint_path,
       checkpoint_every=args.checkpoint_every,
-      compilation_cache_dir=args.compilation_cache_dir,
       chunks_per_dispatch=args.chunks_per_dispatch,
       retry=retry_policy_from_args(args))
   print(f'Wrote {len(values)} metric variables to {args.output_path}')

@@ -57,7 +57,7 @@ UNITS = {
 }
 
 _PAGE = """<!DOCTYPE html>
-<html><head><meta charset="utf-8"><title>WeatherBench-X TPU scorecard</title>
+<html><head><meta charset="utf-8"><title>WeatherBench-X scorecard</title>
 <style>
  body {{ font-family: system-ui, sans-serif; margin: 2rem; color: #1a1a1a; }}
  h1 {{ font-size: 1.4rem; }}
@@ -80,7 +80,7 @@ _PAGE = """<!DOCTYPE html>
  svg text {{ font-size: 11px; fill: #444; }}
 </style></head>
 <body>
-<h1>WeatherBench-X TPU scorecard</h1>
+<h1>WeatherBench-X scorecard</h1>
 <div id="selftest"></div>
 <div>
  <label>Variable <select id="variable"></select></label>

@@ -18,6 +18,7 @@ from typing import Any, Hashable, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from weatherbenchx_tpu import darray
+from weatherbenchx_tpu import datetimes
 from weatherbenchx_tpu.darray import Coord, DimArray
 
 
@@ -273,8 +274,6 @@ class ByExactCoord(Binning):
 
 def _extract_time_unit(values: np.ndarray, unit: str) -> np.ndarray:
   """Extract a time unit from datetime64/timedelta64 values (host-side)."""
-  import pandas as pd
-
   if values.dtype.kind == 'm':  # timedelta
     seconds = values.astype('timedelta64[ns]').astype(np.int64) / 1e9
     divisors = {'second': 1, 'minute': 60, 'hour': 3600, 'day': 86400,
@@ -283,17 +282,16 @@ def _extract_time_unit(values: np.ndarray, unit: str) -> np.ndarray:
       raise ValueError(f'Unsupported unit for timedelta: {unit}')
     out = seconds // divisors[unit] if unit != 'second' else seconds
     return out.astype(np.int64)
-  idx = pd.DatetimeIndex(values.reshape(-1))
-  out = np.asarray(getattr(idx, unit))
-  return out.reshape(values.shape)
+  return datetimes.datetime_field(values, unit)
 
 
 class ByTimeUnit(Binning):
   """Bin by a calendar unit of a host datetime/timedelta coordinate.
 
-  Reference ``binning.py:396-441``. Works for datetime64 coords (any pandas
-  dt attribute: 'hour', 'dayofyear', 'month', ...) and timedelta64 coords
-  ('second'/'minute'/'hour'/'day'/'week'/'year' as integer multiples).
+  Reference ``binning.py:396-441``. Works for datetime64 coords (any
+  ``datetimes.FIELDS`` entry: 'hour', 'dayofyear', 'month', ...) and
+  timedelta64 coords ('second'/'minute'/'hour'/'day'/'week'/'year' as
+  integer multiples).
   """
 
   def __init__(self, unit: str, time_dim: str, add_global_bin: bool = False):

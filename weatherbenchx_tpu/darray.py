@@ -1,4 +1,4 @@
-"""DimArray: a TPU-native named-axis array.
+"""DimArray: a jit-transparent named-axis array.
 
 This is the framework's replacement for the reference's use of
 ``xr.DataArray`` everywhere (e.g. ``weatherbenchX/metrics/base.py:136-158``).
@@ -779,9 +779,9 @@ def comparison_safe_threshold(thresholds: DimArray, data_dtype,
   round-to-nearest image of the threshold even though in float64 it lies
   strictly on one side — flipping indicator statistics (CDF / binarize /
   exceedance) relative to the reference, which compares in float64
-  (``weatherbenchX/metrics/wrappers.py:333-374``; caught by the round-5
-  100-seed TPU parity fuzz: one exact f32 tie flipped an RPS bin count by
-  1/M at one gridpoint, 7e-4 on the aggregate).
+  (``weatherbenchX/metrics/wrappers.py:333-374``; caught by the 100-seed
+  parity fuzz, ``tools/parity_fuzz.py``: one exact f32 tie flipped an RPS
+  bin count by 1/M at one gridpoint, 7e-4 on the aggregate).
 
   For data x exactly representable in ``data_dtype`` and a float64
   threshold t, the float64 comparison is preserved EXACTLY by rounding t
@@ -919,54 +919,16 @@ def _coord_parts_identical(vals: Sequence[Any]) -> bool:
   return True
 
 
-def dot_regime(specs: Sequence[tuple], dim: Sequence[str] | str) -> str:
-  """Which lowering :func:`dot` takes on TPU for these operand layouts.
-
-  ``specs`` is a list of ``(dims, shape)`` pairs (one per operand, in
-  :func:`dot` argument order); returns ``'vpu'`` (fused broadcast
-  multiply + tree reduce) or ``'mxu'`` (einsum-HIGHEST). Shape-only so
-  callers — notably ``Aggregator.aggregate_statistics``'s batching gate
-  — can ask about hypothetical layouts (e.g. a stacked statistic group)
-  without materializing them. The rule: the broadcast product must stay
-  within 8x the largest operand, else the product blow-up loses to the
-  matmul form (measured 21 vs 5 ms/step on the 51-rank histogram shape).
-  """
-  dims = (dim,) if isinstance(dim, str) else tuple(dim)
-  del dims  # routing depends only on the broadcast product vs operands
-  all_dims = broadcast_dims(*[d for d, _ in specs])
-  sizes: dict = {}
-  for dd, ss in specs:
-    for d, n in zip(dd, ss):
-      if sizes.get(d, 1) == 1:
-        sizes[d] = n
-  product_elems = 1
-  for d in all_dims:
-    product_elems *= sizes[d]
-  max_operand = max(int(np.prod(s)) if s else 1 for _, s in specs)
-  return 'vpu' if product_elems <= 8 * max_operand else 'mxu'
-
-
 def dot(*arrays: DimArray, dim: Sequence[str] | str) -> DimArray:
   """Named contraction: multiply all arrays and sum over ``dim``.
 
-  TPU-native equivalent of the reference's single aggregation contraction
+  Equivalent of the reference's single aggregation contraction
   ``xr.dot(stat, *weights, *bin_masks, dim=reduce_dims)``
-  (``weatherbenchX/aggregation.py:328``).
-
-  On TPU this lowers as a broadcast multiply + reduce, which XLA fuses
-  into one VPU pass — NOT as ``jnp.einsum``: einsum routes to the MXU,
-  whose default precision multiplies f32 as single-pass bf16 (measured
-  2e-1 worst-case relative error on the production 34-bin contraction)
-  and whose ``Precision.HIGHEST`` multi-pass fix both re-reads operands
-  (det family 2.5 → 4.2 ms/step) and still accumulates sequentially
-  (2e-4). The fused multiply + tree-reduce is simultaneously the fastest
-  and the most accurate form measured on the v5e: 0.88 vs 0.93/0.97 ms
-  and 6e-6 vs 2e-1/2e-4 relative error against a float64 reference.
-
-  On CPU/GPU it stays ``jnp.einsum``, which reproduces the reference's
-  np.einsum summation order — the parity suite compares at the
-  reference's own 1e-5, and a different reduction association alone
-  pushes cancellation-heavy finalizers (REV value curves) outside it.
+  (``weatherbenchX/aggregation.py:328``), lowered as ``jnp.einsum`` at
+  ``Precision.HIGHEST``: float32 products with no TF32 on the GPU, and the
+  reference's np.einsum summation order on the CPU (the parity suite
+  compares at the reference's own 1e-5; a different reduction association
+  alone lands cancellation-heavy finalizers like REV outside it).
   """
   dims = (dim,) if isinstance(dim, str) else tuple(dim)
   all_dims = broadcast_dims(*[a.dims for a in arrays])
@@ -976,102 +938,12 @@ def dot(*arrays: DimArray, dim: Sequence[str] | str) -> DimArray:
     # bool*bool is logical AND and bool sums reduce to int; a count needs
     # floats. (Mixed operands promote to float on multiply.)
     operands = [op.astype(jnp.float32) for op in operands]
-
-  # The broadcast multiply + reduce only wins while the (fused) product
-  # stays near the operands' size — one extra "bin" dim (34 regions over a
-  # lead×lat×lon statistic, ratio ~4) fuses into a single VPU pass, but
-  # genuinely matmul-shaped contractions with several large output dims
-  # (rank histogram: 51 ranks × 34 regions, ratio ~200) blow the product
-  # up 51× and measured 4× slower than the MXU (21 vs 5 ms/step).
-  vpu_friendly = dot_regime(
-      [(a.dims, a.shape) for a in arrays], dims) == 'vpu'
-  # History (round 5): a manual 3-term bf16 Dekker-split MXU lowering for
-  # single-bool-mask contractions (round 4's darray._mask_mxu_dot) was
-  # REMOVED after on-chip measurement (tools/bench_mask_dot_forms.py):
-  # it materialized the broadcast product + three bf16 splits in HBM
-  # (rank_histogram 4.6 -> 25 ms/step in BENCH_r04), and XLA reassociates
-  # dot(zh,m)+dot(zl,m)+dot(zt,m) into dot(zh+zl+zt,m) on TPU, collapsing
-  # the split back to bf16 grade (measured 6e-3 max rel error vs the
-  # 1e-5 parity envelope). einsum-HIGHEST (== the BF16_BF16_F32_X6 dot
-  # algorithm) keeps the 6-pass decomposition INSIDE the fused MXU
-  # pipeline: measured 1.3e-5 max rel err and 1.35 ms at the 204-row
-  # production shape vs the manual split's 6e-3 / 4.1 ms.
-
-  if jax.default_backend() != 'tpu' or not vpu_friendly:
-    # CPU/GPU: einsum reproduces the reference's np.einsum summation order
-    # (the parity suite compares at the reference's own 1e-5; a different
-    # reduction association alone lands cancellation-heavy finalizers like
-    # REV outside it). On TPU, HIGHEST avoids the MXU's default bf16
-    # multiplies (2e-1 worst-case error measured); it is a no-op on CPU
-    # and disables tf32 on GPU.
-    letters = {d: chr(ord('a') + i) for i, d in enumerate(all_dims)}
-    spec = ','.join(''.join(letters[d] for d in a.dims) for a in arrays)
-    spec += '->' + ''.join(letters[d] for d in out_dims)
-    data = jnp.einsum(spec, *operands, precision=jax.lax.Precision.HIGHEST)
-    coords = _merge_coords(out_dims, *[a.coords for a in arrays])
-    return DimArray(data, out_dims, coords)
-
-  def expand(a, op):
-    # Transpose to all_dims order and insert size-1 axes for missing dims.
-    present = [d for d in all_dims if d in a.dims]
-    op = jnp.transpose(op, [a.dims.index(d) for d in present])
-    for i, d in enumerate(all_dims):
-      if d not in a.dims:
-        op = jnp.expand_dims(op, i)
-    return op
-
-  prod = expand(arrays[0], operands[0])
-  for a, op in zip(arrays[1:], operands[1:]):
-    prod = prod * expand(a, op)
-  data = prod.sum(tuple(i for i, d in enumerate(all_dims) if d in dims))
+  letters = {d: chr(ord('a') + i) for i, d in enumerate(all_dims)}
+  spec = ','.join(''.join(letters[d] for d in a.dims) for a in arrays)
+  spec += '->' + ''.join(letters[d] for d in out_dims)
+  data = jnp.einsum(spec, *operands, precision=jax.lax.Precision.HIGHEST)
   coords = _merge_coords(out_dims, *[a.coords for a in arrays])
   return DimArray(data, out_dims, coords)
-
-
-def dot_batched(stats: Sequence[DimArray], *operands: DimArray,
-                dim: Sequence[str] | str) -> list[DimArray]:
-  """Contract several SAME-LAYOUT arrays against shared operands at once.
-
-  Equivalent to ``[dot(s, *operands, dim=dim) for s in stats]`` (rows of
-  a contraction are independent), but stacks the statistics on a fresh
-  leading axis so the whole group lowers as ONE contraction. This is what
-  feeds the MXU mask path its rows: the production aggregation calls dot
-  per (statistic, variable, numerator/denominator) with only ``lead``
-  (~4) rows each — batching a family's 20 same-layout calls gives an
-  (80, N)x(N, 34) matmul instead of 20 VPU re-scans of the mask stack.
-
-  The reference has no analogue (each ``xr.dot`` is separate inside
-  beam's per-chunk combine, ``weatherbenchX/aggregation.py:290-328``);
-  this is a TPU-first restructuring.
-  """
-  stats = list(stats)
-  if not stats:
-    return []
-  first = stats[0]
-  for s in stats[1:]:
-    if s.dims != first.dims or s.shape != first.shape:
-      raise ValueError('dot_batched requires identical dims/shape: '
-                       f'{s.dims}{s.shape} vs {first.dims}{first.shape}')
-  if len(stats) == 1:
-    return [dot(first, *operands, dim=dim)]
-  batch_dim = '__stack__'
-  assert batch_dim not in first.dims
-  stacked = jnp.stack([jnp.asarray(s.data) for s in stats])
-  # Dim coords of the shared layout ride along; per-entry non-dim coords
-  # are re-merged per split below exactly as dot() would.
-  sda = DimArray(stacked, (batch_dim,) + first.dims,
-                 {k: c for k, c in first.coords.items()
-                  if set(c.dims).issubset(first.dims)})
-  outb = dot(sda, *operands, dim=dim)
-  ax = outb.dims.index(batch_dim)
-  out_dims = tuple(d for d in outb.dims if d != batch_dim)
-  outs = []
-  for i, s in enumerate(stats):
-    data = jnp.take(outb.data, i, axis=ax)
-    coords = _merge_coords(out_dims, s.coords,
-                           *[a.coords for a in operands])
-    outs.append(DimArray(data, out_dims, coords))
-  return outs
 
 
 def apply_ufunc(

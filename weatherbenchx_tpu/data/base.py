@@ -6,7 +6,7 @@ return chunks as ``dict[var, DimArray]`` with canonical dims
 pipeline per chunk: source load → process_chunk_fn → interpolation against a
 reference chunk → optional NaN mask coord → optional values-as-coord.
 
-TPU note: the NaN ``mask`` coord is attached as a DEVICE coordinate so it
+Note: the NaN ``mask`` coord is attached as a DEVICE coordinate so it
 traces straight into the jitted aggregation (masked values are zeroed in
 one fused op; see ``aggregation.Aggregator.aggregate_stat_var``).
 """

@@ -46,7 +46,7 @@ class ConstantLatencyWrapper(base.DataLoader):
     # example, would silently lose the sparse retrace-bounding padding (one
     # XLA recompile per ragged chunk). The reference wrapper forwards only
     # interpolation/compute/nan-mask (``latency_wrappers.py:60-75``);
-    # add_values_to_coords and the TPU-specific padding are load-bearing
+    # add_values_to_coords and the retrace-bounding padding are load-bearing
     # here.
     super().__init__(
         interpolation=data_loader._interpolation,

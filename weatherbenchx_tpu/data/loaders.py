@@ -1,6 +1,6 @@
 """Gridded dataset loaders.
 
-TPU-native equivalents of the reference's Zarr/NetCDF loaders
+JAX-side equivalents of the reference's Zarr/NetCDF loaders
 (``weatherbenchX/data_loaders/xarray_loaders.py:25-410``), over three
 sources: an in-memory ``dict[var, DimArray]`` dataset, the framework's own
 npz container (``io.save_dataset``), or — when xarray/zarr are installed —
@@ -16,6 +16,7 @@ from typing import Any, Callable, Hashable, Iterable, Mapping, Optional, Union
 
 import numpy as np
 
+from weatherbenchx_tpu import datetimes
 from weatherbenchx_tpu import io as io_lib
 from weatherbenchx_tpu.darray import Coord, DimArray
 from weatherbenchx_tpu.data import base
@@ -233,8 +234,6 @@ class ClimatologyFromDataset(DatasetBackedLoader):
 
   def _load_chunk_from_source(self, init_times, lead_times=None):
     assert self._ds is not None
-    import pandas as pd
-
     if isinstance(lead_times, slice):
       raise ValueError(
           'Lead time slice not yet supported for climatology data loaders.')
@@ -245,14 +244,11 @@ class ClimatologyFromDataset(DatasetBackedLoader):
     else:
       valid_time = init_times.astype('datetime64[ns]')
       out_dims = ('init_time',)
-    vt = pd.DatetimeIndex(valid_time.reshape(-1))
-
     out = {}
     for k, da in self._ds.items():
       sel = da
       for coord_name in self._climatology_time_coords:
-        unit_values = np.asarray(getattr(vt, coord_name)).reshape(
-            valid_time.shape)
+        unit_values = datetimes.datetime_field(valid_time, coord_name)
         coord = sel.coord_values(coord_name)
         lookup = {int(v): i for i, v in enumerate(coord)}
         idx = np.vectorize(lambda u: lookup[int(u)])(unit_values)
@@ -335,16 +331,13 @@ class ProbabilisticClimatologyFromDataset(DatasetBackedLoader):
 
   def _load_chunk_from_source(self, init_times, lead_times=None):
     assert self._ds is not None
-    import pandas as pd
-
     if lead_times is None or isinstance(lead_times, slice):
       raise ValueError(
           'Exact lead times must be specified for this data loader.')
     valid_time = (init_times[:, None].astype('datetime64[ns]')
                   + lead_times[None, :].astype('timedelta64[ns]'))
-    vt = pd.DatetimeIndex(valid_time.reshape(-1))
-    doy = np.asarray(vt.dayofyear).reshape(valid_time.shape)
-    hod = np.asarray(vt.hour).reshape(valid_time.shape)
+    doy = datetimes.datetime_field(valid_time, 'dayofyear')
+    hod = datetimes.datetime_field(valid_time, 'hour')
     years = list(range(self._start_year, self._end_year + 1))
     member_times = np.stack([
         (np.datetime64(str(year), 'ns')

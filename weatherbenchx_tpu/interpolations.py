@@ -137,9 +137,8 @@ def interpolate_to_coords(
 
   # Keep host data on host: the loaders run interpolation during chunk
   # prep, and forcing jnp here would dispatch every gather/lerp eagerly to
-  # the attached device (seconds of round trips per chunk on a
-  # remote-attached chip). Device/traced inputs stay jnp (ops/interp
-  # picks the namespace per array).
+  # the attached device, one host round trip per op. Device/traced inputs
+  # stay jnp (ops/interp picks the namespace per array).
   raw = da.data
   if not isinstance(raw, (jax.Array, jax.core.Tracer, np.ndarray)):
     raw = np.asarray(raw)  # materialize lazy store-backed arrays once

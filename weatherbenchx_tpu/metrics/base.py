@@ -11,7 +11,7 @@ Mirrors the semantics of the reference's ``weatherbenchX/metrics/base.py``:
 * Statistics are deduplicated across metrics by ``unique_name``
   (``metrics/base.py:120-133, 252-291``).
 
-TPU-native difference: statistics here are pure jnp functions of DimArrays,
+Difference from the reference: statistics here are pure jnp functions of DimArrays,
 so the whole stats→aggregate step jits into a single XLA program per chunk;
 there is no generator-based streaming (the fused aggregation never
 materializes per-point statistics in HBM unless asked to).
@@ -24,6 +24,7 @@ from typing import Any, Hashable, Iterator, Mapping, final
 
 import numpy as np
 
+from weatherbenchx_tpu import datetimes
 from weatherbenchx_tpu.darray import Coord, DimArray
 
 # -- device resources ---------------------------------------------------------
@@ -279,10 +280,10 @@ def computation_cache():
   """A per-evaluation memo shared by the statistics of one compute pass.
 
   Statistics whose values derive from one fused computation (e.g. the
-  CRPS skill/spread + ensemble moments Pallas pass,
-  ``ops/crps_pairwise.fused_ensemble_stats``) store it here keyed by
+  CRPS skill/spread + ensemble moments kernel pass,
+  ``ops/ensemble_stats.fused_ensemble_stats``) store it here keyed by
   their input array identities, so sibling statistics in the same pass
-  reuse it instead of re-reading the ensemble from HBM. Scoped strictly
+  reuse it instead of re-reading the ensemble from device memory. Scoped strictly
   to one compute_unique_statistics_for_all_metrics call — entries may
   hold tracers, which must never outlive their trace.
   """
@@ -411,25 +412,25 @@ def climatology_alignment_indices(
   ``dayofyear`` + ``hour`` dims (reference ``metrics/base.py:396-403``).
   Returns a dict of {clim_dim: integer index array of valid_time's shape}.
   """
-  import pandas as pd
-
-  vt = pd.DatetimeIndex(valid_time.reshape(-1))
+  vt = np.asarray(valid_time).reshape(-1).astype('datetime64[ns]')
   out: dict[str, np.ndarray] = {}
   if 'time' in clim.dims:
     coord = np.asarray(clim.coords['time'].values)
     lookup = {v: i for i, v in enumerate(coord)}
-    idx = np.array([lookup[np.datetime64(t, 'ns')] for t in vt])
+    idx = np.array([lookup[t] for t in vt])
     out['time'] = idx.reshape(valid_time.shape)
     return out
   doy_coord = np.asarray(clim.coords['dayofyear'].values)
   doy_lookup = {int(v): i for i, v in enumerate(doy_coord)}
   out['dayofyear'] = np.array(
-      [doy_lookup[int(d)] for d in vt.dayofyear]).reshape(valid_time.shape)
+      [doy_lookup[int(d)] for d in datetimes.datetime_field(vt, 'dayofyear')]
+  ).reshape(valid_time.shape)
   if 'hour' in clim.dims:
     hour_coord = np.asarray(clim.coords['hour'].values)
     hour_lookup = {int(v): i for i, v in enumerate(hour_coord)}
     out['hour'] = np.array(
-        [hour_lookup[int(h)] for h in vt.hour]).reshape(valid_time.shape)
+        [hour_lookup[int(h)] for h in datetimes.datetime_field(vt, 'hour')]
+    ).reshape(valid_time.shape)
   return out
 
 
@@ -547,8 +548,8 @@ def attach_climatology_indices(
 
   Host-side per chunk (cheap: O(n_times)). The int32 index coords are left
   as numpy here; the pipeline's ``prepare_chunk`` moves them to the device
-  in one batched transfer (per-array transfers are a round trip each on
-  remote-attached accelerators), after which they are pytree leaves and the
+  in one batched transfer (per-array transfers are a blocking transfer
+  each), after which they are pytree leaves and the
   jitted statistic gathers without retracing when chunk times change.
   """
   out = dict(predictions)

@@ -66,7 +66,7 @@ class SEEPS(base.StatisticWithClimatology):
   category-pair selects, each multiplying its scoring-cell expression
   (evaluated with the exact arithmetic of the reference's matrix entries,
   so values stay bit-identical). No category axis, no concat/rename, no
-  contraction: a single VPU-friendly fusion with 1/9th the intermediate
+  contraction: a single elementwise fusion with 1/9th the intermediate
   footprint. Degenerate inputs keep reference semantics: a NaN wet
   threshold leaves a non-dry point in no category (score contribution 0,
   not NaN), and NaN precipitation poisons its gridpoint.

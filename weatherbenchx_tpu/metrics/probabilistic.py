@@ -1,15 +1,12 @@
 """Probabilistic (ensemble) statistics and metrics.
 
 Reference semantics: ``weatherbenchX/metrics/probabilistic.py:28-1220``.
-TPU notes:
+Implementation notes:
 
-* On TPU, the CRPS spread E|X − X'| defaults to a Pallas pairwise kernel
-  (``ops/crps_pairwise.py``) that holds the ensemble block in VMEM and does
-  ⌈(M−1)/2⌉ rolled absolute-difference passes — measured ~3× faster than
-  the jnp.sort PWM path at M=50 (set ``WBX_NO_PALLAS=1`` to disable). Both
-  ``use_sort`` settings route through it when eligible; the flag then only
-  selects the fallback algorithm.
-* Off-TPU, use_sort=True is the O(M log M) Zamo & Naveau PWM form via one
+* Inside a compute pass on the GPU, CRPS skill and spread, the ensemble
+  mean and the squared deviations come from one fused kernel pass over the
+  ensemble (``ops/ensemble_stats.py``), shared by the sibling statistics.
+* Otherwise use_sort=True is the O(M log M) Zamo & Naveau PWM form via one
   ``jnp.sort`` (reference ``run_benchmark_evaluation.py:342`` production
   config), and use_sort=False the O(M²) broadcast form; XLA fuses the
   |Xi - Xj| reduction so the M×M intermediate is tiled, not materialized.
@@ -18,14 +15,13 @@ TPU notes:
   vectorize loop (``probabilistic.py:662-710``).
 """
 
-import os
 from typing import Hashable, Mapping, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from weatherbenchx_tpu.ops import crps_pairwise
+from weatherbenchx_tpu.ops import ensemble_stats
 
 from weatherbenchx_tpu import darray
 from weatherbenchx_tpu import tree
@@ -124,77 +120,42 @@ class CRPSSkill(base.PerVariableStatistic):
         return fused['skill_sum'] / fused['m']
     reduce_dims = [self._ensemble_dim]
     if self._ensemble_dim in targets.dims:
-      kernel_result = self._maybe_cross_kernel(predictions, targets)
-      if kernel_result is not None:
-        return kernel_result
       pseudo = f'{self._ensemble_dim}_PSEUDO_FOR_TARGETS'
       reduce_dims.append(pseudo)
       targets = targets.rename({self._ensemble_dim: pseudo})
     return abs(predictions - targets).mean(
         tuple(reduce_dims), skipna=self._skipna_ensemble)
 
-  def _maybe_cross_kernel(self, predictions, targets):
-    """Two-ensemble E|X−Y| via the Pallas cross kernel (TPU fast path).
-
-    The jnp fallback broadcasts an (Mx, My, *rest) intermediate; the
-    kernel accumulates it in VMEM instead. Requires identical non-ensemble
-    dims/sizes and skipna off (NaN propagation matches skipna=False).
-    """
-    ens = self._ensemble_dim
-    interpret = os.environ.get('WBX_PALLAS_INTERPRET', '0') == '1'
-    if self._skipna_ensemble or os.environ.get('WBX_NO_PALLAS', '0') == '1':
-      return None
-    mx, my = predictions.sizes[ens], targets.sizes[ens]
-    if not (interpret
-            or crps_pairwise.cross_supported(mx, my, predictions.dtype)):
-      return None
-    rest = [d for d in predictions.dims if d != ens]
-    if (sorted(d for d in targets.dims if d != ens) != sorted(rest)
-        or any(targets.sizes[d] != predictions.sizes[d] for d in rest)
-        or predictions.dtype != targets.dtype):
-      return None
-    p_t = predictions.transpose(ens, *rest)
-    t_t = targets.transpose(ens, *rest)
-    total = crps_pairwise.pairwise_cross_sum(
-        jnp.asarray(p_t.data), jnp.asarray(t_t.data), interpret=interpret)
-    # Merge coords from BOTH operands, like the broadcast fallback's
-    # arithmetic would (a targets-side ``mask`` coord must survive for
-    # masked aggregation).
-    coords = darray._merge_coords(tuple(rest), predictions.coords,
-                                  targets.coords)
-    return DimArray(total / (mx * my), tuple(rest), coords)
-
 
 def _fused_ensemble_pass(predictions, targets, ensemble_dim):
   """Shared fused-kernel results for this compute pass, or None.
 
-  One Pallas pass over the VMEM-resident ensemble block yields CRPS
-  spread, CRPS skill, the ensemble mean, and Σ(x−mean)² together
-  (``ops/crps_pairwise.fused_ensemble_stats``) — sibling statistics
+  On the GPU one kernel pass over the ensemble yields CRPS spread, CRPS
+  skill, the ensemble mean, and Σ(x−mean)² together
+  (``ops/ensemble_stats.fused_ensemble_stats``). Sibling statistics
   (CRPSSkill/CRPSSpread/UnbiasedEnsembleMeanSquaredError/
-  EnsembleVariance) computed in the same pass then share it via
-  ``base.computation_cache`` instead of re-reading the ~830 MB
-  production ensemble from HBM for a second skill/moments sweep.
-  Deterministic-target case only; the memo holds tracers, so it only
-  activates inside a compute pass (cache is None otherwise — each
-  statistic falls back to its standalone path).
+  EnsembleVariance) computed in the same pass share it via
+  ``base.computation_cache`` instead of each sweeping the ~830 MB
+  production ensemble again. Deterministic-target case only; the memo
+  holds tracers, so it only activates inside a compute pass (cache is None
+  otherwise — each statistic falls back to its standalone path). Where
+  ``ensemble_stats.kernel_for`` names no kernel for the backend, every
+  statistic takes its standalone jnp path.
   """
   cache = base.get_computation_cache()
   if cache is None:
     return None
-  if os.environ.get('WBX_NO_PALLAS', '0') == '1':
+  kernel = ensemble_stats.kernel_for(jax.default_backend())
+  if kernel is None:
     return None
-  interpret = os.environ.get('WBX_PALLAS_INTERPRET', '0') == '1'
   if ensemble_dim not in predictions.dims or ensemble_dim in targets.dims:
     return None
   m = int(predictions.sizes[ensemble_dim])
   rest = [d for d in predictions.dims if d != ensemble_dim]
   if (sorted(str(d) for d in targets.dims) != sorted(str(d) for d in rest)
       or any(targets.sizes[d] != predictions.sizes[d] for d in rest)
-      or predictions.dtype != targets.dtype):
-    return None
-  if not (interpret or crps_pairwise.fused_supported(
-      m, len(rest), predictions.dtype)) or len(rest) < 2 or m < 2:
+      or predictions.dtype != targets.dtype
+      or not ensemble_stats.applies(m, len(rest), predictions.dtype)):
     return None
   key = ('fused_ens_stats', ensemble_dim,
          id(predictions.data), id(targets.data))
@@ -205,8 +166,7 @@ def _fused_ensemble_pass(predictions, targets, ensemble_dim):
   order = [ensemble_dim] + rest
   x = jnp.asarray(predictions.transpose(*order).data)
   y = jnp.asarray(targets.transpose(*rest).data)
-  spread, skill, mean, sqdev = crps_pairwise.fused_ensemble_stats(
-      x, y, interpret=interpret)
+  spread, skill, mean, sqdev = kernel(x, y)
   out_dims = tuple(rest)
   p_coords = {k: c for k, c in predictions.coords.items()
               if set(c.dims).issubset(out_dims)}
@@ -280,31 +240,6 @@ class CRPSSpread(base.PerVariableStatistic):
       if fused is not None:
         m = fused['m']
         return fused['spread_sum'] / (m * (m - int(self._fair)))
-
-    # WBX_PALLAS_INTERPRET=1 runs the kernel via the Pallas interpreter on
-    # any backend — CI exercises this exact selection path on CPU.
-    interpret = os.environ.get('WBX_PALLAS_INTERPRET', '0') == '1'
-    if (not self._skipna_ensemble
-        and os.environ.get('WBX_NO_PALLAS', '0') != '1'
-        and (interpret
-             or crps_pairwise.supported(int(n_ensemble), da.dtype))):
-      # TPU fast path: Pallas spread kernel on a VMEM-resident ensemble
-      # block — ~5× XLA's lax.sort form at M=50. The kernel itself picks
-      # pair enumeration or an in-kernel bitonic/PWM sort body by M (see
-      # ops/crps_pairwise.py). Numerically the same estimator to fp
-      # tolerance, so both use_sort settings take it.
-      m = int(n_ensemble)
-      order = [self._ensemble_dim] + [
-          d for d in da.dims if d != self._ensemble_dim]
-      da_t = da.transpose(*order)
-      axis0_first = jnp.asarray(da_t.data)
-      pair_sum = crps_pairwise.spread_sum_along_axis(
-          axis0_first, 0, interpret=interpret)
-      out_dims = tuple(order[1:])
-      coords = {k: c for k, c in da.coords.items()
-                if set(c.dims).issubset(out_dims)}
-      return DimArray(pair_sum / (m * (m - int(self._fair))),
-                      out_dims, coords)
 
     if self._use_sort:
       if self._skipna_ensemble:

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from weatherbenchx_tpu import darray
+from weatherbenchx_tpu import datetimes
 from weatherbenchx_tpu.darray import Coord, DimArray
 from weatherbenchx_tpu.metrics import base
 
@@ -172,8 +173,6 @@ def select_bin_thresholds_by_time_from_chunk(
   chunk (notebook/single-chunk mode); in the jitted pipeline use
   climatology-style statistics, or run with retrace-per-chunk.
   """
-  import pandas as pd
-
   def host_coord(name):
     c = chunk.coords[name]
     v = np.asarray(c.values)
@@ -200,7 +199,7 @@ def select_bin_thresholds_by_time_from_chunk(
           lead_time=host_coord('lead_time')[1])
     elif {'dayofyear', 'lead_time'}.issubset(bin_thresholds.dims):
       _, init = host_coord('init_time')
-      doy = np.asarray(pd.DatetimeIndex(init).dayofyear)
+      doy = datetimes.datetime_field(init, 'dayofyear')
       return bin_thresholds.sel(dayofyear=doy, lead_time=host_coord(
           'lead_time')[1]).rename({'dayofyear': 'init_time'})
     else:
@@ -210,7 +209,7 @@ def select_bin_thresholds_by_time_from_chunk(
       return bin_thresholds.sel(valid_time=host_coord('valid_time')[1])
     elif 'dayofyear' in bin_thresholds.dims:
       _, vt = host_coord('valid_time')
-      doy = np.asarray(pd.DatetimeIndex(vt).dayofyear)
+      doy = datetimes.datetime_field(vt, 'dayofyear')
       return bin_thresholds.sel(dayofyear=doy).rename(
           {'dayofyear': 'valid_time'})
     else:

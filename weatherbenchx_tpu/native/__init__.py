@@ -99,7 +99,7 @@ def _configure_zarrcodec(lib) -> None:
 
 
 _blockstore = _Module('blockstore', [], _configure_blockstore)
-_zarrcodec = _Module('zarrcodec', ['-lz', '-lzstd', '-l:liblz4.so.1'],
+_zarrcodec = _Module('zarrcodec', ['-lz', '-l:libzstd.so.1', '-l:liblz4.so.1'],
                      _configure_zarrcodec)
 
 

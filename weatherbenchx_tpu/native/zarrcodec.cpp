@@ -9,8 +9,10 @@
 // (README_CHUNK_FORMAT.rst) with lz4/zstd/zlib inner streams and byte
 // shuffle. The pure-Python mirror lives in weatherbenchx_tpu/codecs.py.
 //
-// Build: g++ -O3 -shared -fPIC -pthread zarrcodec.cpp -lz -lzstd
-//            -l:liblz4.so.1  (lz4/zstd linked by soname; headers absent).
+// Build: g++ -O3 -shared -fPIC -pthread zarrcodec.cpp -lz
+//            -l:libzstd.so.1 -l:liblz4.so.1  (lz4 and zstd are linked by
+//            soname and declared below, so only their runtime libraries
+//            need to be installed, not their headers).
 
 #include <atomic>
 #include <cstdint>
@@ -20,8 +22,14 @@
 #include <vector>
 
 #include <zlib.h>
-#include <zstd.h>
 
+extern "C" size_t ZSTD_decompress(void* dst, size_t dst_capacity,
+                                  const void* src, size_t compressed_size);
+extern "C" size_t ZSTD_compress(void* dst, size_t dst_capacity,
+                                const void* src, size_t src_size,
+                                int compression_level);
+extern "C" size_t ZSTD_compressBound(size_t src_size);
+extern "C" unsigned ZSTD_isError(size_t code);
 extern "C" int LZ4_decompress_safe(const char* src, char* dst,
                                    int compressed_size, int dst_capacity);
 extern "C" int LZ4_compress_default(const char* src, char* dst,
@@ -79,7 +87,7 @@ int inflate_into(const uint8_t* src, size_t src_n, uint8_t* dst,
 inline int32_t le32(const uint8_t* p) {
   int32_t v;
   std::memcpy(&v, p, 4);
-  return v;  // x86/TPU hosts are little-endian
+  return v;  // x86 and arm64 hosts are little-endian
 }
 
 inline uint32_t le32u(const uint8_t* p) {

@@ -18,7 +18,7 @@ This module provides that boundary without requiring xarray/netCDF4:
   datasets) load directly into ``dict[str, DimArray]``.
 
 Everything here is host-side I/O; arrays land as plain numpy and enter
-the TPU path through the usual loaders/aggregation machinery.
+the device path through the usual loaders/aggregation machinery.
 """
 
 from __future__ import annotations

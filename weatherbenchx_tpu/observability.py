@@ -3,7 +3,7 @@
 The reference's observability is Beam metric distributions — per-chunk load
 times and per-statistic compute/aggregate times viewed in the Dataflow UI
 (``beam_pipeline.py:54-59,191-214``; ``docs/source/beam_dataflow.md:78-83``).
-The TPU equivalent here: a process-local ``Metrics`` registry of counters
+The equivalent here: a process-local ``Metrics`` registry of counters
 and timing distributions that the pipeline reports into, a summary printer,
 and an optional ``jax.profiler`` trace context for device-level profiling
 (view with TensorBoard / xprof).

@@ -1,6 +1,6 @@
 """The jitted, mesh-sharded per-chunk evaluation step.
 
-This is the TPU replacement for the reference's Beam worker DoFns
+This is the replacement for the reference's Beam worker DoFns
 (``beam_pipeline.py:68-240``): one XLA program per chunk computes every
 unique statistic, fuses weighting/binning/masking into einsum reductions,
 and emits the (Σ w·s, Σ w) AggregationState.
@@ -94,8 +94,8 @@ def _convert_chunk(data, stats, is_predictions, targets, keep_host_coords):
 
   Returns (converted dict, pending arrays, slots): the caller must move
   ``pending`` to the device in ONE jax.device_put and apply the results
-  via ``_apply_moved`` — per-array transfers are a full round trip each on
-  remote-attached accelerators (~100x slower than one batched transfer).
+  via ``_apply_moved`` — per-array transfers are a blocking transfer each,
+  where one batched transfer pays that latency once.
   Until then the slotted coords hold host placeholders.
   """
   out = dict(data)
@@ -387,8 +387,8 @@ class ChunkEvaluator:
           coords = {n: c for n, c in op.coords.items()
                     if not (c.dims and set(c.dims) <= rd)}
           op = DimArray(op.data, op.dims, coords)
-          # Never np.asarray a possibly-device leaf here: on a
-          # remote-attached backend that is a blocking D2H fetch.
+          # Never np.asarray a possibly-device leaf here: that is a
+          # blocking device-to-host fetch.
           arr_id = id(op.data)
           if arr_id not in array_slot_by_id:
             array_slot_by_id[arr_id] = len(arrays)
@@ -473,7 +473,7 @@ class ChunkEvaluator:
     """Places chunk arrays across the mesh (device coords follow their dims).
 
     All arrays move in ONE device_put call (per-array transfers are a
-    round trip each on remote-attached accelerators).
+    blocking transfer each).
     """
     arrays, shardings, slots = [], [], []  # slots: (var, coord name or None)
     for var, da in data.items():
@@ -522,7 +522,7 @@ class ChunkEvaluator:
 
     Coords (time seconds, climatology indices) and data arrays for both
     sides of the pair move in a single jax.device_put — per-array
-    transfers are a round trip each on remote-attached accelerators.
+    transfers are a blocking transfer each.
     """
     p, p_pending, p_slots = _convert_chunk(
         predictions, self._clim_stats, True, targets, self._host_coords)
@@ -550,8 +550,8 @@ class ChunkEvaluator:
 
     All chunks must share pytree structure and leaf shapes (the pipeline
     groups them that way); a single chunk falls through to ``eval_chunk``.
-    Amortizes per-dispatch host↔device latency — the dominant cost for
-    small chunks on remote-attached accelerators.
+    Amortizes per-dispatch host↔device latency, which dominates for
+    small chunks.
     """
     prepared = [self.prepare_pair(p, t) for p, t in pairs]
     return self.eval_prepared(prepared)

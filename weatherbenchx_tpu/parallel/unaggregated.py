@@ -1,6 +1,6 @@
 """Unaggregated statistics pipeline: stream raw per-point statistics out.
 
-The TPU equivalent of the reference's ``define_unaggregated_pipeline``
+The equivalent of the reference's ``define_unaggregated_pipeline``
 (``beam_pipeline.py:610-681``), which rechunks per-chunk statistics into a
 Zarr store via xarray_beam with a template inferred from chunk 0. Here the
 same thing happens without Beam: chunks are prepared and placed through the

@@ -164,3 +164,21 @@ def compute_all_metrics(metrics, predictions, targets, reduce_dims,
                                       **aggregator_kwargs)
   return aggregation.compute_metric_values_for_single_chunk(
       metrics, aggregator, predictions, targets)
+
+
+def reference_ensemble_stats(x, y) -> tuple:
+  """Float64 numpy reference of ``ops.ensemble_stats.fused_ensemble_stats``.
+
+  x: (M, *rest) ensemble, y: (*rest) target. Returns (spread_sum,
+  skill_sum, mean, sq_dev_sum) in float64, where spread_sum is
+  Σ_{i≠j}|x_i − x_j| through the order-statistic identity
+  2 Σ_k (2k − M − 1) x_(k) on numpy's sort (a NaN sorts last, where its
+  coefficient is nonzero, so it poisons its gridpoint).
+  """
+  x = np.asarray(x, np.float64)
+  y = np.asarray(y, np.float64)
+  m = x.shape[0]
+  coeff = (2 * np.arange(1, m + 1) - m - 1).astype(np.float64)
+  spread = 2 * np.tensordot(coeff, np.sort(x, axis=0), axes=(0, 0))
+  mean = x.mean(0)
+  return spread, np.abs(x - y).sum(0), mean, ((x - mean) ** 2).sum(0)

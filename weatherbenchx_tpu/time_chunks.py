@@ -6,7 +6,7 @@ times are either an exact np.timedelta64 array (chunkable) or a slice
 interval (kept whole, inclusive end — loaders window it). Chunk offsets
 locate each chunk inside the full arrays for result assembly.
 
-On TPU this is pure host-side driver code: chunks map 1:1 onto jitted
+This is pure host-side driver code: chunks map 1:1 onto jitted
 evaluation steps, and (via ``parallel.pipeline``) onto shards of the device
 mesh, replacing the reference's ``beam.Create`` fan-out
 (``beam_pipeline.py:436-451``).

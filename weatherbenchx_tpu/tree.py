@@ -1,6 +1,6 @@
 """Nested-structure mapping utilities for trees of DimArrays.
 
-TPU-native analogue of the reference's ``weatherbenchX/xarray_tree.py:42-68``
+Analogue of the reference's ``weatherbenchX/xarray_tree.py:42-68``
 ``map_structure``: maps a function over nested dicts/lists/tuples of
 DimArrays (or any leaves), treating dicts as internal nodes and everything
 else as leaves. Entries for which ``func`` returns None are dropped from
